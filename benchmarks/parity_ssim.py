@@ -19,17 +19,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
 
 def main():
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_CACHE_DIR",
-                                     "/tmp/rtjax-jit-cache-tpu"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import numpy as np
     from rtjax import RenderConfig
     from rtjax.render.checkpoint import render_checkpointed
     from rtjax.render.film import write_ppm
     from rtjax.scenes import cornell_bunny
+    from rtjax.utils.cache import enable_compile_cache
     from rtjax.utils.compare import mse, psnr, ssim
+    enable_compile_cache()
 
     size = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
     spp = int(sys.argv[2]) if len(sys.argv) > 2 else 1024

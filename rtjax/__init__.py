@@ -1,11 +1,12 @@
-"""rtjax — a TPU-native wavefront path tracer built on JAX/XLA/Pallas.
+"""rtjax — a wavefront path tracer for NVIDIA GPUs, built on JAX.
 
-Brand-new framework with the capabilities of the CUDA reference
-``lashhw/rtcuda`` (see SURVEY.md): a wavefront path tracer with NEE + MIS +
-Russian roulette over a sweep-SAH BVH, matte/mirror/glass materials, point
-and area lights, a pinhole camera, PLY loading and PPM output — redesigned
-for TPUs (SoA arrays, masked wavefronts, deterministic scatter-add
-accumulation, ``shard_map`` scaling across chips).
+A framework with the capabilities of the CUDA reference ``lashhw/rtcuda``
+(see SURVEY.md): a wavefront path tracer with NEE + MIS + Russian roulette
+over a sweep-SAH BVH, matte/mirror/glass materials, point and area lights,
+a pinhole camera, PLY loading and PPM output — as one jitted JAX program
+per frame (SoA arrays, masked wavefronts, deterministic scatter-add
+accumulation, ``shard_map`` scaling across devices) whose BVH walk is a
+CUDA kernel called through ``jax.ffi`` (rtjax.kernels.native_walk).
 """
 
 from .config import RenderConfig

@@ -18,8 +18,8 @@ Algorithm parity with the reference:
 - primitives permuted into leaf order by the x-axis list (bvh.cuh:208).
 
 One deliberate extension: ``max_leaf_size`` forces a split (at the SAH-best
-index) even when the SAH cost test would create a leaf, so that the TPU
-traversal kernels can unroll leaf intersection over a small fixed bound.
+index) even when the SAH cost test would create a leaf, bounding the work
+of one leaf visit.
 ``max_leaf_size=None`` reproduces the reference exactly.
 """
 
@@ -52,9 +52,9 @@ def build_bvh(tri_bmin: np.ndarray, tri_bmax: np.ndarray,
       max_leaf_size: optional forced-split bound (see module docstring).
       min_leaf_size: stop splitting once a range has <= this many prims.
         The reference always splits to ~1-2 prims/leaf (bvh.cuh:112); the
-        TPU packet kernel prefers filled 8-wide leaf rows — one (cheap,
-        vector) leaf visit replaces several (scalar-latency-bound) node
-        steps.  1 reproduces the reference exactly.
+        scenes build with 8 (the 8-triangle leaf rule, inherited and not
+        yet re-derived for the GPU walk: ROADMAP S6).  1 reproduces the
+        reference exactly.
 
     Returns a :class:`BuildResult` whose ``perm`` maps leaf-order slot ->
     original triangle index.
@@ -129,7 +129,7 @@ def build_bvh(tri_bmin: np.ndarray, tri_bmax: np.ndarray,
             if best_cost >= max_split_cost:
                 if max_leaf_size is None or count <= max_leaf_size:
                     make_leaf = True
-                # else: forced split at best_split (TPU leaf-size bound)
+                # else: forced split at best_split (leaf-size bound)
 
         if make_leaf:
             num_prims[node] = count

@@ -1,8 +1,9 @@
 """Flattened BVH arrays — the device-side acceleration structure.
 
-TPU-native equivalent of the reference's ``Bvh`` node array
-(/root/reference/bvh.cuh:4-28).  The pointer-linked node struct becomes four
-dense HBM arrays ready for gather-based or Pallas traversal:
+Equivalent of the reference's ``Bvh`` node array (bvh.cuh:4-28).  The
+pointer-linked node struct becomes four dense device arrays for the XLA
+walk (the native walk packs the same nodes into 16-byte records,
+kernels/native_walk.py):
 
 - ``bmin``/``bmax [M, 3]``: child AABBs, split min/max (the reference's
   interleaved ``bounds[6]`` layout exists only to enable the per-octant index
@@ -39,7 +40,7 @@ class BvhArrays:
     # static: actual tree depth from the build.  The at-cap median split
     # (builder_np.py) can legally exceed BVH_MAX_DEPTH on degenerate scenes;
     # the XLA traversal sizes its stack from this so pushes are never
-    # silently dropped (ADVICE r2 #1).
+    # silently dropped.
     max_depth: int = 0
 
     @property
@@ -59,14 +60,14 @@ class BuildResult:
     num_nodes: int
     max_depth: int
 
-    def to_device(self) -> BvhArrays:
-        """Flattened device arrays, with a leaf root wrapped so that node 0 is
-        ALWAYS internal.
+    def padded_arrays(self):
+        """Host node arrays ``(bmin, bmax, left_first, num_prims, depth)``
+        with a leaf root wrapped so that node 0 is ALWAYS internal.
 
         The reference special-cases a leaf root in both traversals
-        (bvh.cuh:252,307).  A data-dependent branch per ray is poison for the
-        batched TPU kernels (a vmapped ``lax.cond`` with per-lane predicates
-        broadcasts every captured scene array per lane), so instead we pad:
+        (bvh.cuh:252,307).  The walks here skip that branch instead: a
+        vmapped ``lax.cond`` with per-lane predicates would broadcast every
+        captured scene array per lane, so the root is padded:
         root -> [real leaf, dummy leaf with an inverted (never-hit) bbox].
         """
         m = self.num_nodes
@@ -83,6 +84,13 @@ class BuildResult:
             left_first = np.array([1, left_first[0], 0], np.int32)
             num_prims = np.array([0, num_prims[0], 1], np.int32)
             depth += 1
+        return (bmin.astype(np.float32), bmax.astype(np.float32),
+                left_first.astype(np.int32), num_prims.astype(np.int32),
+                depth)
+
+    def to_device(self) -> BvhArrays:
+        """Flattened device arrays of :meth:`padded_arrays`."""
+        bmin, bmax, left_first, num_prims, depth = self.padded_arrays()
         return BvhArrays(
             bmin=jnp.asarray(bmin),
             bmax=jnp.asarray(bmax),

@@ -170,7 +170,7 @@ extern "C" int64_t rtjax_build_bvh(
             if (best_cost >= max_split_cost) {
                 if (max_leaf_size <= 0 || count <= max_leaf_size)
                     make_leaf = true;
-                // else: forced split at best_split (TPU leaf-size bound)
+                // else: forced split at best_split (leaf-size bound)
             }
         }
 

@@ -5,13 +5,13 @@ triangles (main.cu:67-84); instancing (BASELINE.md eval config 4: multi-mesh,
 >= 1M triangles, two-level BVH) requires sharing one bottom-level BVH (BLAS)
 across many placements so memory scales with unique meshes, not instances.
 
-TPU-native design — *instance-sequential* traversal instead of a pointer-
-jumping TLAS walk: instances are few (tens) and static, so the top level is a
-static loop: rays are masked by the instance's world AABB (one vector slab
-test), transformed into local space (one affine batch op), and traced against
-the shared BLAS with the same packet kernels; closest hits merge across
-instances with running-minimum tmax.  This keeps every kernel launch dense
-and avoids per-lane transform divergence inside the traversal loop.
+Design — *instance-sequential* traversal instead of a pointer-jumping TLAS
+walk: instances are few (tens) and static, so the top level is XLA code
+around the single-level walk (render/trace.py): either a static loop over
+instances (rays masked by the instance's world AABB, transformed into local
+space, traced against the shared BLAS) or the multi-pass re-dispatch, where
+each pass every ray walks its nearest unwalked candidate instance; closest
+hits merge across instances with running-minimum tmax.
 
 Conventions:
 - ray parameter t is preserved by the affine transform because local
@@ -43,7 +43,7 @@ class MeshBlas:
 
     tris: Triangles      # leaf-ordered
     bvh: BvhArrays
-    tables: object       # SceneTables (pallas) or None
+    walk: object         # native-walk records (kernels.native_walk)
 
 
 @partial(jax.tree_util.register_dataclass,
@@ -83,9 +83,10 @@ def affine_rows(matrix: np.ndarray) -> np.ndarray:
 def apply_affine_point(rows, p):
     """rows [3,4] (or [...,3,4]) @ [p,1] for p [..., 3].
 
-    precision="highest" is required: XLA's default lowers this f32 einsum to
-    bf16 MXU passes on TPU (~4e-3 relative error), which perturbs local-frame
-    rays enough to flip hit triangles near silhouettes.
+    precision="highest" is required: at default precision XLA may lower
+    this f32 einsum to reduced-precision matrix passes (TF32 on the GPU),
+    which perturbs local-frame rays enough to flip hit triangles near
+    silhouettes.
     """
     return jnp.einsum("...ij,...j->...i", rows[..., :3], p,
                       precision="highest") + rows[..., 3]

@@ -1,7 +1,6 @@
 """Compile-time constants of the framework.
 
-TPU-native rebuild of the reference's ``constant.hpp`` (see
-/root/reference/constant.hpp:4-10).  Same defaults; here they are plain module
+Rebuild of the reference's ``constant.hpp`` (constant.hpp:4-10).  Same defaults; here they are plain module
 constants consumed by :class:`rtjax.config.RenderConfig`, which makes every one
 of them overridable per render instead of compile-time fixed.
 """

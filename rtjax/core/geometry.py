@@ -1,9 +1,9 @@
 """Triangles, rays, and AABB intersection as batched pure functions.
 
-TPU-native equivalents of /root/reference/triangle.cuh, ray.cuh,
-bounding_box.cuh and aabb_intersector.cuh.  Structs-of-pointers become
+Equivalents of the reference's triangle.cuh, ray.cuh, bounding_box.cuh
+and aabb_intersector.cuh.  Structs-of-pointers become
 structs-of-arrays (SoA pytrees); the per-thread intersection methods become
-batched functions over ``[..., 3]`` arrays that run on the VPU.
+batched functions over ``[..., 3]`` arrays.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ The reference keeps one mutable cuRAND XORWOW state per path slot, seeded with
 ``curand_init(seed=1, sequence=slot_id)`` and explicitly round-tripped through
 registers in each kernel (/root/reference/render.cuh:68-73,156,247).
 
-On TPU the idiomatic equivalent is JAX's counter-based threefry: instead of
+The JAX equivalent is the counter-based threefry: instead of
 2^20 mutable states we derive every uniform from ``(seed, draw_site, lane)``.
 Each *draw site* (a static (iteration, purpose) pair) folds its id into the
 base key once and then draws a whole ``[N]`` batch, giving one threefry sweep

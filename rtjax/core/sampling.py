@@ -1,7 +1,7 @@
 """Sampling routines and MIS helpers.
 
-TPU-native equivalents of /root/reference/utility.cuh plus the triangle area
-sampler from /root/reference/triangle.cuh:78-82.  All functions are pure and
+Equivalents of the reference's utility.cuh plus the triangle area
+sampler from triangle.cuh:78-82.  All functions are pure and
 batched over leading axes.
 """
 

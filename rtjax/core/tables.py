@@ -1,18 +1,19 @@
-"""Small-table row lookup without HBM gathers.
+"""Small-table row lookup as select chains instead of gathers.
 
-On TPU an XLA gather of a [2^17] index vector costs ~1 ms regardless of the
-table's size (it is serialized per element); for the framework's *small*
-tables — materials (a handful of rows, material.cuh:20-22), lights
-(light.cuh:20-26), per-light emitter triangles — a chain of vector selects
-over the rows is pure VPU work and ~100x faster.  Above ``limit`` rows the
-chain degrades, so the helper falls back to a real gather.
+For the framework's *small* tables — materials (a handful of rows,
+material.cuh:20-22), lights (light.cuh:20-26), per-light emitter
+triangles — a chain of vector selects over the rows is elementwise work
+that fuses into its consumers, where a gather is a separate pass.  Above
+``limit`` rows the chain grows too long, so the helper falls back to a
+real gather.  (The select-vs-gather crossover was set on another device
+and is not yet re-derived on the GPU: ROADMAP S6.)
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 
-# selects are ~10 us per row at 2^17 lanes; gathers ~1 ms flat
+# rows up to which a select chain replaces the gather
 SELECT_LIMIT = 16
 
 

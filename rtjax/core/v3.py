@@ -1,12 +1,10 @@
 """Vector math over component triples ``(x, y, z)`` of ``[N]`` arrays.
 
-Component-wise twin of :mod:`rtjax.core.vec`.  On TPU a ``[N, 3]`` array is
-tiled ``(8, 128)``: the minor dim 3 pads to a full 128-lane tile, so every
-elementwise op wastes ~42x lanes.  Measured on v5e (docs/PERF_NOTES.md round
-2 layout probe): a 40-op chain at pool width runs 3.8x faster on three
-``[N]`` component arrays than on ``[N, 3]``.  The wavefront engine therefore
-keeps all per-lane vector state as component triples; ``vec.py`` remains the
-public ``[..., 3]`` API for scene data and tests.
+Component-wise twin of :mod:`rtjax.core.vec`.  The wavefront engine keeps
+all per-lane vector state as component triples: every component is a
+contiguous ``[N]`` array (coalesced for elementwise code and for the native
+walk, which reads ray components directly); ``vec.py`` remains the public
+``[..., 3]`` API for scene data and tests.
 
 A "v3" is a plain 3-tuple of equal-shaped arrays; all ops broadcast like
 jnp.  The function set mirrors the reference's Vec3 surface

@@ -1,9 +1,9 @@
 """Vector math over ``[..., 3]`` float32 arrays.
 
-TPU-native equivalent of the reference's ``Vec3`` (/root/reference/vec3.cuh).
+Equivalent of the reference's ``Vec3`` (vec3.cuh).
 Instead of a 3-float struct with operator overloads, every function here is a
 pure jnp function over arrays whose trailing axis has length 3, so the same
-code path vectorizes over millions of rays on the VPU and stays fully
+code path vectorizes over millions of rays and stays fully
 traceable under ``jit`` / ``vmap`` / ``shard_map``.
 
 ``Vec3::atomic_add`` (vec3.cuh:149-153) has no equivalent here on purpose:

@@ -1,23 +1,21 @@
-"""Ray-BVH traversal — XLA gather-based variant.
+"""Ray-BVH traversal — the XLA walk, the plain reference.
 
-TPU-native rebuild of the reference's device traversal
-(/root/reference/bvh.cuh:221-357 + device_stack.cuh).  The CUDA version is a
-per-thread pointer-chasing loop with a 29-entry register stack; here each ray
-is a ``lax.while_loop`` over dense node arrays with a fixed-size index stack,
+Rebuild of the reference's device traversal (bvh.cuh:221-357 +
+device_stack.cuh) in plain JAX.  The CUDA version is a per-thread
+pointer-chasing loop with a 29-entry stack; here each ray is a
+``lax.while_loop`` over dense node arrays with a fixed-size index stack,
 ``vmap``-ed over the wavefront — XLA batches the loop into
-"iterate-until-all-lanes-done" with masked updates, the structural analog of
-SIMT execution, and lowers the per-lane node reads to HBM gathers.
+"iterate-until-all-lanes-done" with masked updates and lowers the per-lane
+node reads to gathers.
 
-Both variants keep the reference's exact visit order:
+The native walk (kernels/native_walk.py, one thread per ray) keeps the same
+visit order, so both give the same hits and the same walk counters:
 - ordered descent: nearer child first, farther pushed (entry compare,
   bvh.cuh:284-290),
 - leaves intersected inline, shrinking ray tmax (bvh.cuh:222-236),
 - the slab test does NOT clip against [0, tmax] (aabb_intersector.cuh:24-36),
 - any-hit excludes one triangle by identity — an int32 index compare instead
   of pointer equality (bvh.cuh:243) — and exits on the first hit.
-
-A Pallas packet-traversal kernel is the planned fast path for coherent ray
-batches; this module is the always-available baseline and oracle.
 """
 
 from __future__ import annotations
@@ -219,8 +217,8 @@ def traverse_closest(bvh: BvhArrays, tris: Triangles, origin, direction,
 
     Returns ``(hit, t, u, v, prim, normal)``; ``prim`` is the global
     (leaf-order) triangle index or -1, ``normal [N, 3]`` the hit triangle's
-    unnormalized geometric normal (zero on miss) — same contract as
-    pallas_wide.wide_traverse_closest.  With ``with_stats=True`` a trailing
+    unnormalized geometric normal (zero on miss) — the native walk's
+    contract plus ``u``/``v``.  With ``with_stats=True`` a trailing
     ``(node_pair_steps, leaf_visits)`` int32 scalar pair is appended
     (summed over rays).
     """

@@ -1,10 +1,10 @@
 """Multi-host (multi-process) rendering support.
 
-A multi-host TPU pod runs one process per host; JAX's distributed runtime
-stitches their local chips into one global device list, and the existing
+A multi-host cluster runs one process per host; JAX's distributed runtime
+stitches their local devices into one global device list, and the existing
 sample-space sharding (rtjax.parallel.sharding) then works unchanged: the
 mesh spans all hosts, the scene is replicated, and the single framebuffer
-psum rides ICI within a host and DCN across hosts.  There is nothing
+psum crosses hosts like any other collective.  There is nothing
 host-aware in the render path itself — by design (SURVEY.md §5: the only
 collective is the final all-reduce).
 

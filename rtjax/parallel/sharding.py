@@ -1,12 +1,12 @@
 """Multi-chip rendering: sample-space sharding over a device mesh.
 
 The reference is strictly single-GPU (SURVEY.md §5: no NCCL/MPI, no
-multi-device anything); the TPU framework's first-class scaling dimension is
-data parallelism over the *sample space*: the global camera-ray id range
+multi-device anything); rtjax scales by data parallelism over the *sample
+space*: the global camera-ray id range
 ``[0, W*H*spp)`` (render.cuh:254-259's ``camera_ray_id``) is partitioned into
 ``num_devices`` contiguous chunks, each chip runs the full wavefront engine
 on its chunk against a replicated scene + BVH, and the per-chip framebuffers
-are combined with a single ``jax.lax.psum`` over ICI — the only collective in
+are combined with a single ``jax.lax.psum`` — the only collective in
 the whole frame, mirroring how the reference's only cross-thread communication
 is the atomic framebuffer (SURVEY.md §5 'distributed communication backend').
 
@@ -60,13 +60,15 @@ def render_frame_linear_sharded(scene: Scene, camera: Camera,
         # independent per-chip sample streams
         local_key = jax.random.fold_in(key, idx)
         fb, stats = render_frame_linear(scene, camera, local, local_key)
-        # one all-reduce over ICI: sum of per-chip sample sums
+        # one all-reduce: sum of per-chip sample sums
         fb = jax.lax.psum(fb, axis_name)
         rays = jax.lax.psum(stats["rays_traced"], axis_name)
         # per-chip while_loop trip counts differ; report the slowest chip
         # (a replicated out_spec would return an arbitrary shard's value)
         iters = jax.lax.pmax(stats["iterations"], axis_name)
-        return fb, {"iterations": iters, "rays_traced": rays}
+        per_dev = jax.lax.all_gather(stats["rays_traced"], axis_name)
+        return fb, {"iterations": iters, "rays_traced": rays,
+                    "rays_per_device": per_dev}
 
     fn = shard_map(
         partial(shard_fn),

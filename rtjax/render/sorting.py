@@ -1,12 +1,10 @@
-"""Ray sorting for packet coherence.
+"""Ray sorting: the path state's compaction and locality order.
 
-The reference relies on CUDA's SIMT model to tolerate divergent rays; the
-TPU packet kernels instead want the rays of one tile to traverse similar BVH
-subtrees.  Sorting the pool by (direction octant, origin Morton code) before
-each traversal groups coherent rays into tiles and pushes inactive lanes to
-the back — where whole tiles become empty and their kernel instances exit on
-the first step, which is the packet-era equivalent of the reference's CUB
-stream compaction (render.cuh:348-364).
+Sorting the pool by (continue?, origin Morton code, direction octant) before
+each walk compacts live paths into a prefix and pushes dead lanes to the
+back — the equivalent of the reference's CUB stream compaction
+(render.cuh:348-364) — and places rays that walk similar BVH subtrees next
+to each other.
 """
 
 from __future__ import annotations
@@ -128,9 +126,9 @@ def sort_pytree_by_key(keys, tree):
     multi-operand ``lax.sort``.
 
     This is the engine's whole compaction step: a single variadic sort
-    moves all per-slot state with vectorized compare-exchange passes
-    (~1 ms at 2^17 x 30 operands on v5e), where applying an argsort
-    permutation array-by-array costs ~1 ms PER gather.  ``[N, K]`` leaves
+    moves all per-slot state with vectorized compare-exchange passes,
+    where applying an argsort permutation array-by-array costs one gather
+    per array.  ``[N, K]`` leaves
     are split into K ``[N]`` columns (lax.sort requires same-shaped
     operands); bools ride as int8.  Stable, so equal keys preserve slot
     order (deterministic images).

@@ -1,10 +1,16 @@
-"""Unified scene tracing: backend dispatch + two-level (instanced) merge.
+"""Unified scene tracing: walk dispatch + two-level (instanced) merge.
 
 Gives the wavefront engine a single closest-hit/any-hit interface over
 (a) the base one-level scene and (b) optional instanced meshes
 (rtjax.accel.instancing).  Hits are identified by ``(src, prim)`` where
 src 0 = base scene and src k = instance k-1 — the index-pair equivalent of
 the reference's triangle-pointer identity (render.cuh:321, bvh.cuh:243).
+
+Two walks serve every single-level query (``RenderConfig.traversal``):
+"native" — the one-thread-per-ray walk called through ``jax.ffi``
+(kernels/native_walk.py), built for the platform the program runs on —
+and "xla", the vmapped while-loop walk (kernels/traversal.py) that is the
+plain reference.  "auto" is "native".  Neither falls back to the other.
 
 Ray origins/directions flow through as component triples (core.v3, the
 engine's hot-path layout); ``[N, 3]`` arrays are accepted too and the
@@ -20,79 +26,20 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core import v3
-from ..kernels.pallas_lane import LSTACK, lane_traverse_closest
-from ..kernels.pallas_lane_persist import (persist_traverse_anyhit,
-                                           persist_traverse_closest)
-from ..kernels.pallas_wide import (SMEM_META_CAP, wide_traverse_anyhit,
-                                   wide_traverse_anyhit_inst,
-                                   wide_traverse_closest,
-                                   wide_traverse_closest_inst)
+from ..kernels import native_walk
 from ..kernels.traversal import traverse_anyhit, traverse_closest
-
-
-def _inst_meta_vmem(tabs):
-    """Static decision: does the combined two-level meta exceed SMEM?
-    (Array sizes are static under jit; mirrors the scene-build tiering.)"""
-    return (tabs.wide.child_meta.size
-            + tabs.wide.node_info.size) * 4 >= SMEM_META_CAP
-
-
-def _tables_meta_vmem(tables):
-    """Same SMEM-cap decision for a single WideTables (per-BLAS launches in
-    the per-instance fallback loop: a large instanced mesh's meta must go
-    to the mirror lanes there too or the SMEM in_spec faults at compile)."""
-    if tables is None:
-        return False
-    return (tables.child_meta.size + tables.node_info.size) * 4 \
-        >= SMEM_META_CAP
 
 _FLT_EPSILON = float(np.finfo(np.float32).eps)
 
-_warned = set()
+TRAVERSALS = ("auto", "native", "xla")
 
 
-def _warn_once(key, msg):
-    if key not in _warned:
-        _warned.add(key)
-        from ..utils.log import logger
-        logger.warning(msg)
-
-
-def _warn_blas_fallback(mesh_id):
-    _warn_once(("blas_xla", mesh_id),
-               f"BLAS mesh {mesh_id}: wide tables exceed the VMEM guard; "
-               "its instances traverse on the (slow) XLA backend")
-
-
-def resolve_mode(scene, cfg):
-    mode = cfg.traversal
-    if mode == "auto":
-        mode = "pallas" if (jax.default_backend() == "tpu"
-                            and scene.tables is not None) else "xla"
-    interp = jax.default_backend() != "tpu"
-    return mode, interp
-
-
-def _lane_eligible(tables, bvh, leaf_hbm):
-    """Static gate for the per-sublane walker: it needs unpacked node rows,
-    a VMEM-resident leaf table, and the build's depth within its private
-    stack slices (wide-tree depth <= binary build depth <= LSTACK)."""
-    return (tables is not None and not tables.packed_nodes and not leaf_hbm
-            and bvh.max_depth <= LSTACK)
-
-
-def _st2(st):
-    """Normalize a kernel stats tuple to the engine's (steps, leafs) pair
-    (lane kernels append a third drain-round counter)."""
-    return (st[0], st[1])
-
-
-# scenes at or below this triangle count skip the BVH kernels entirely:
-# an unrolled all-triangles MT loop is pure fused XLA vector code (zero
-# pallas launches, zero node-walk rounds).  At 64 tris the loop costs
-# ~1800 VPU ops/ray — still far below one packet launch's fixed I/O.
-# cfg.direct_max_tris overrides (0 disables).
-DIRECT_MAX_TRIS = 64
+def resolve_mode(cfg) -> str:
+    """The walk a render uses: "native" or "xla" ("auto" is "native")."""
+    if cfg.traversal not in TRAVERSALS:
+        raise ValueError(f"traversal must be one of {TRAVERSALS}, got "
+                         f"{cfg.traversal!r}")
+    return "xla" if cfg.traversal == "xla" else "native"
 
 
 def _direct_closest(tris, o, d, tmax, active, with_stats):
@@ -100,7 +47,7 @@ def _direct_closest(tris, o, d, tmax, active, with_stats):
     triples, exact reference accept rule, triangle.cuh:39-58).  The
     trivially-small-scene fast path: every per-triangle constant is a
     static slice, so XLA fuses the whole loop into the surrounding
-    iteration with no kernel launch and no [P]-table gather."""
+    iteration with no walk call and no [P]-table gather."""
     T = tris.num
     shape = tmax.shape
     best_t = jnp.full(shape, jnp.float32(BIG_T), jnp.float32)
@@ -165,87 +112,37 @@ def _direct_anyhit(tris, o, d, tmax, exclude, active, with_stats):
 BIG_T = 3.4e38
 
 
-def _direct_max(cfg):
-    return getattr(cfg, "direct_max_tris", DIRECT_MAX_TRIS)
+def _backend(mode, cfg, walk, bvh, tris, with_stats=False):
+    """``(closest, anyhit)`` single-level walks over one BVH.
 
-
-def _backend(mode, interp, tables, bvh, tris, stack_size, with_stats=False,
-             leaf_hbm=False, meta_vmem=False, walker="packet",
-             anyhit_walker="auto", direct_max=DIRECT_MAX_TRIS):
-    if mode == "pallas" and tris is not None and tris.num <= direct_max:
-        # trivially-small scene: the fused XLA MT loop replaces both
-        # kernels (round-5 engine floor diet #5; A/B in RESULTS.md)
+    ``closest(o, d, tmax, active)`` returns ``(hit, t, prim, normal)``
+    (normal as a triple) and ``anyhit(o, d, tmax, exclude, active)`` the
+    occlusion mask; with ``with_stats`` each appends its
+    ``(node_pair_steps, leaf_visits)`` sums.
+    """
+    if mode == "native" and tris.num <= cfg.direct_max_tris:
+        # a trivially small (base or BLAS) scene skips the BVH entirely
         return (partial(_direct_closest, tris, with_stats=with_stats),
                 partial(_direct_anyhit, tris, with_stats=with_stats))
-    if mode == "pallas":
-        assert tables is not None, (
-            "traversal='pallas' needs scenes built with max_leaf_size <= 8")
-        if walker == "auto":
-            # persistent per-sublane walkers (no tile barrier) beat the
-            # tile-mode lane walker on every measured single-level scene:
-            # 18.7 vs 16.7 Mrays/s on the headline bench (PERF_NOTES r4)
-            walker = "persist" if _lane_eligible(tables, bvh, leaf_hbm) \
-                else "packet"
-        if walker in ("lane", "persist") and \
-                not _lane_eligible(tables, bvh, leaf_hbm):
-            _warn_once(("lane", id(tables)),
-                       f"walker='{walker}' requested but the scene is "
-                       "ineligible (packed node rows / HBM leaf table / "
-                       "deep build); falling back to the packet walker")
-            walker = "packet"
-        if walker == "persist":
-            closest = partial(persist_traverse_closest, tables,
-                              interpret=interp, with_stats=with_stats,
-                              meta_vmem=meta_vmem)
-        elif walker == "lane":
-            closest = partial(lane_traverse_closest, tables, interpret=interp,
-                              with_stats=with_stats, meta_vmem=meta_vmem)
-        else:
-            closest = partial(wide_traverse_closest, tables, interpret=interp,
-                              with_stats=with_stats, leaf_hbm=leaf_hbm,
-                              meta_vmem=meta_vmem)
-        # any-hit walk schedule: the round-4 packet pin rested on a
-        # tile-barrier-era A/B (benchmarks/lane_vs_packet.py); the
-        # persistent schedule composes with the occlusion early-out (a dry
-        # walker transitions immediately instead of idling at a barrier).
-        # Round-5 on-hardware whole-frame A/B (benchmarks/anyhit_ab.py,
-        # RESULTS.md 2026-08-20): persist 22.18 vs packet 22.14 Mrays/s —
-        # a tie on throughput, and persist-everywhere removes the packet
-        # kernel from lane-eligible frames entirely (one fewer compile
-        # variant).  auto therefore follows the closest-hit walker.
-        if anyhit_walker == "auto":
-            anyhit_walker = "persist" \
-                if _lane_eligible(tables, bvh, leaf_hbm) else "packet"
-        if anyhit_walker == "persist" and _lane_eligible(tables, bvh,
-                                                         leaf_hbm):
-            def anyhit(o, d, tmax, exclude, active, **kw):
-                out = persist_traverse_anyhit(
-                    tables, o, d, tmax, exclude, active, interpret=interp,
-                    with_stats=with_stats, meta_vmem=meta_vmem)
-                if with_stats:
-                    # normalize the lane-walker 3-tuple stats (rounds,
-                    # visits, drains) to the engine's (rounds, visits)
-                    return out[0], _st2(out[1])
-                return out
-        else:
-            anyhit = partial(wide_traverse_anyhit, tables, interpret=interp,
-                             with_stats=with_stats, leaf_hbm=leaf_hbm,
-                             meta_vmem=meta_vmem)
-        return closest, anyhit
     # the at-cap median split can exceed BVH_MAX_DEPTH on degenerate scenes;
-    # size the XLA stack from the build's actual depth so pushes are never
-    # silently dropped (ADVICE r2 #1)
-    stack_size = max(stack_size, bvh.max_depth + 1)
+    # size the stack from the build's actual depth so pushes are never
+    # dropped
+    stack_size = max(cfg.stack_size, bvh.max_depth + 1)
+    if mode == "native":
+        return (partial(native_walk.closest, walk, stack_size=stack_size,
+                        with_stats=with_stats),
+                partial(native_walk.anyhit, walk, stack_size=stack_size,
+                        with_stats=with_stats))
 
-    def closest(o, d, tmax, active, **kw):
-        # XLA fallback computes (u, v) too; drop them to match the wide
-        # kernel's (hit, t, prim, normal) contract
+    def closest(o, d, tmax, active):
+        # the XLA walk computes (u, v) too; drop them to match the native
+        # walk's (hit, t, prim, normal) contract
         out = traverse_closest(bvh, tris, v3.to_array(o), v3.to_array(d),
                                tmax, active, stack_size=stack_size,
                                with_stats=with_stats)
         return out[:2] + (out[4], v3.from_array(out[5])) + out[6:]
 
-    def anyhit(o, d, tmax, exclude, active, **kw):
+    def anyhit(o, d, tmax, exclude, active):
         return traverse_anyhit(bvh, tris, v3.to_array(o), v3.to_array(d),
                                tmax, exclude, active, stack_size=stack_size,
                                with_stats=with_stats)
@@ -301,26 +198,22 @@ def _mesh_groups(inst):
     return groups
 
 
-def _resolve_two_level(scene, cfg) -> str:
-    """Resolve the two-level strategy.  "auto" selects the multi-pass
-    re-dispatch path: measured 3.96 (repass) vs 3.33 (kernel) Mrays/s on
-    the 16-instance config-4 scene, same v5e session (RESULTS.md
-    2026-08-20) — per-ray candidate pruning beats the in-kernel loop's
-    per-tile instance union.  Falls back to the in-kernel loop where a
-    BLAS lacks wide tables (_repass_ok)."""
-    tl = getattr(cfg, "two_level", "auto")
+TWO_LEVEL = ("auto", "repass", "loop")
+
+
+def _resolve_two_level(cfg, which="two_level") -> str:
+    """Two-level strategy for instanced scenes: "repass" (multi-pass
+    re-dispatch, _repass_closest) or "loop" (one masked walk per instance).
+    "auto" picks repass; ``two_level_anyhit="auto"`` follows ``two_level``.
+    """
+    tl = getattr(cfg, which)
+    if tl not in TWO_LEVEL:
+        raise ValueError(f"{which} must be one of {TWO_LEVEL}, got {tl!r}")
     if tl == "auto":
+        if which == "two_level_anyhit":
+            return _resolve_two_level(cfg)
         return "repass"
     return tl
-
-
-def _repass_ok(scene):
-    """Static gate for the multi-pass re-dispatch two-level path: base and
-    every BLAS must have wide tables (Pallas-resident)."""
-    inst = getattr(scene, "instances", None)
-    if inst is None or scene.tables is None:
-        return False
-    return all(scene.blas[m].tables is not None for m in set(inst.mesh_id))
 
 
 def _repass_setup(inst, ks, o, d):
@@ -340,8 +233,8 @@ def _repass_local_rays(inv_flat, pick, o, d):
     is the group's ``[G, 12]`` affine table, ``pick`` the per-ray local
     group index.  take_rows keeps the lookup a <=16-row select chain."""
     from ..core.tables import take_rows
-    # per-column selects keep everything [N]-shaped (a [N, 12] intermediate
-    # lane-pads 12 -> 128 on TPU; 12 independent column chains fuse clean)
+    # per-column selects keep everything [N]-shaped: 12 independent column
+    # chains fuse into the surrounding elementwise code
     col = lambda c: take_rows(inv_flat[:, c], pick)
     o_l = tuple(col(4 * r + 0) * o[0] + col(4 * r + 1) * o[1]
                 + col(4 * r + 2) * o[2] + col(4 * r + 3) for r in range(3))
@@ -350,23 +243,20 @@ def _repass_local_rays(inv_flat, pick, o, d):
     return o_l, d_l
 
 
-def _repass_closest(scene, cfg, interp, o, d, tmax, active, with_stats):
+def _repass_closest(scene, cfg, mode, o, d, tmax, active, with_stats):
     """Two-level closest hit by MULTI-PASS RE-DISPATCH: every pass, each ray
     picks its nearest not-yet-walked candidate instance (world-AABB slab
     entry < current t) and ALL rays walk that mesh's single-level BLAS in
-    ONE coherent launch (rays transform per-ray into their own instance's
-    local frame first — instances of one mesh share the tree, so the launch
-    stays dense).  Passes repeat until no ray has a live candidate; tmax
-    shrinks globally between passes, so pass j+1 only runs the boundary
-    rays whose next candidate is still closer than their best hit.
+    ONE call (rays transform per-ray into their own instance's local frame
+    first — instances of one mesh share the tree).  Passes repeat until no
+    ray has a live candidate; tmax shrinks globally between passes, so
+    pass j+1 only runs the boundary rays whose next candidate is still
+    closer than their best hit.
 
-    This is the TPU-native fix for per-tile instance divergence: the
-    in-kernel loop (wide_traverse_closest_inst) pays the TILE-UNION of
-    overlapping instances (~70 walk rounds/tile on the 16-bunny config 4,
-    docs/ROUND3.md), while each re-dispatch pass costs one single-BLAS walk
-    at per-RAY candidate occupancy — the wavefront analog of the
-    reference's per-thread two-level descent (it has none; instancing is an
-    extension, BASELINE.md config 4).
+    Each pass costs one single-BLAS walk over the rays that still have a
+    candidate, instead of one masked full-width walk per instance (the
+    "loop" strategy in trace_closest).  The reference has no instancing;
+    this is an extension (BASELINE.md config 4).
     Returns ``(hit, t, prim, src, n_local, steps, leafs)``; normals are
     LOCAL frame (caller applies the cofactor transform by src).
     """
@@ -374,13 +264,9 @@ def _repass_closest(scene, cfg, interp, o, d, tmax, active, with_stats):
     inst = scene.instances
     BIG = jnp.float32(3.0e38)
 
-    # base scene: one plain single-level launch (walker auto -> persist)
-    closest, _ = _backend("pallas", interp, scene.tables, scene.bvh,
-                          scene.tris, cfg.stack_size, with_stats,
-                          getattr(scene, "leaf_hbm", False),
-                          getattr(scene, "meta_vmem", False),
-                          walker=getattr(cfg, "walker", "auto"),
-                          direct_max=_direct_max(cfg))
+    # base scene: one plain single-level walk
+    closest, _ = _backend(mode, cfg, scene.walk, scene.bvh, scene.tris,
+                          with_stats)
     hit, t, prim, n_l, *st = closest(o, d, tmax, active)
     t = jnp.where(hit, t, tmax)
     src = jnp.zeros_like(prim)
@@ -389,11 +275,8 @@ def _repass_closest(scene, cfg, interp, o, d, tmax, active, with_stats):
 
     for mesh_id, ks in _mesh_groups(inst).items():
         blas = scene.blas[mesh_id]
-        c_k, _ = _backend("pallas", interp, blas.tables, blas.bvh, blas.tris,
-                          cfg.stack_size, with_stats,
-                          meta_vmem=_tables_meta_vmem(blas.tables),
-                          walker=getattr(cfg, "walker", "auto"),
-                          direct_max=_direct_max(cfg))
+        c_k, _ = _backend(mode, cfg, blas.walk, blas.bvh, blas.tris,
+                          with_stats)
         G = len(ks)
         ent, ok = _repass_setup(inst, ks, o, d)          # [G, N]
         inv_flat = jnp.stack([inst.inv[k].reshape(12) for k in ks])
@@ -438,19 +321,15 @@ def _repass_closest(scene, cfg, interp, o, d, tmax, active, with_stats):
     return hit, t, prim, src, n_l, steps, leafs
 
 
-def _repass_anyhit(scene, cfg, interp, o, d, tmax, exclude, active,
+def _repass_anyhit(scene, cfg, mode, o, d, tmax, exclude, active,
                    with_stats):
     """Two-level any-hit by multi-pass re-dispatch (see _repass_closest).
     Exclusion applies only within the base scene (lights are never
     instanced); occluded rays drop out of later passes."""
     inst = scene.instances
     BIG = jnp.float32(3.0e38)
-    _, anyhit = _backend("pallas", interp, scene.tables, scene.bvh,
-                         scene.tris, cfg.stack_size, with_stats,
-                         getattr(scene, "leaf_hbm", False),
-                         getattr(scene, "meta_vmem", False),
-                         anyhit_walker=getattr(cfg, "anyhit_walker", "auto"),
-                         direct_max=_direct_max(cfg))
+    _, anyhit = _backend(mode, cfg, scene.walk, scene.bvh, scene.tris,
+                         with_stats)
     occ = anyhit(o, d, tmax, exclude, active)
     if with_stats:
         occ, (steps, leafs) = occ
@@ -460,11 +339,8 @@ def _repass_anyhit(scene, cfg, interp, o, d, tmax, exclude, active,
 
     for mesh_id, ks in _mesh_groups(inst).items():
         blas = scene.blas[mesh_id]
-        _, a_k = _backend("pallas", interp, blas.tables, blas.bvh, blas.tris,
-                          cfg.stack_size, with_stats,
-                          meta_vmem=_tables_meta_vmem(blas.tables),
-                          anyhit_walker=getattr(cfg, "anyhit_walker", "auto"),
-                          direct_max=_direct_max(cfg))
+        _, a_k = _backend(mode, cfg, blas.walk, blas.bvh, blas.tris,
+                          with_stats)
         G = len(ks)
         ent, ok = _repass_setup(inst, ks, o, d)
         inv_flat = jnp.stack([inst.inv[k].reshape(12) for k in ks])
@@ -500,18 +376,17 @@ def _repass_anyhit(scene, cfg, interp, o, d, tmax, exclude, active,
     return occ
 
 
-def trace_closest(scene, cfg, mode, interp, o, d, tmax, active,
-                  with_stats=False):
+def trace_closest(scene, cfg, mode, o, d, tmax, active, with_stats=False):
     """Closest hit over base scene + all instances.
 
-    ``o``/``d`` may be ``[N, 3]`` arrays or component triples (core.v3);
-    the returned ``normal`` matches the input convention.  Returns
-    ``(hit, t, prim, src, normal)``; ``normal`` is the world-space
-    unnormalized geometric normal of the hit triangle (the reference's
-    cross(e1, e2), triangle.cuh:19), straight from the traversal kernel —
-    no post-hoc triangle gather.  With ``with_stats=True`` a trailing
-    ``(node_steps, leaf_visits)`` pair is appended (summed over the base
-    scene and every instance launch).
+    ``mode`` is :func:`resolve_mode`'s walk.  ``o``/``d`` may be ``[N, 3]``
+    arrays or component triples (core.v3); the returned ``normal`` matches
+    the input convention.  Returns ``(hit, t, prim, src, normal)``;
+    ``normal`` is the world-space unnormalized geometric normal of the hit
+    triangle (the reference's cross(e1, e2), triangle.cuh:19), straight
+    from the walk — no post-hoc triangle gather.  With ``with_stats=True``
+    a trailing ``(node_steps, leaf_visits)`` pair is appended (summed over
+    the base scene and every instance walk).
     """
     as_v3 = isinstance(o, tuple)
     if not as_v3:
@@ -525,75 +400,27 @@ def trace_closest(scene, cfg, mode, interp, o, d, tmax, active,
         out = (hit, t, prim, src, n_w)
         return out + ((st,) if with_stats else ())
 
-    # multi-pass re-dispatch two-level path (opt-in / auto): per-ray
-    # nearest-candidate passes over coherent single-BLAS launches
-    if inst is not None and mode == "pallas" and \
-            _resolve_two_level(scene, cfg) == "repass" and _repass_ok(scene):
+    if inst is not None and _resolve_two_level(cfg) == "repass":
         hit, t, prim, src, n_l, steps, leafs = _repass_closest(
-            scene, cfg, interp, o, d, tmax, active, with_stats)
+            scene, cfg, mode, o, d, tmax, active, with_stats)
         n_w = n_l
         for k in range(inst.num):
             n_w = v3.where(src == k + 1, _matvec_v3(inst.nrm[k], n_l), n_w)
         return _ret(hit, t, prim, src, n_w,
                     (steps, leafs) if with_stats else None)
 
-    # single-launch two-level fast path: the kernel walks base + all
-    # instances itself (one dispatch, shared tmax pruning) instead of the
-    # per-instance full-pool-width launches below
-    if inst is not None and mode == "pallas" and scene.inst_tables is None:
-        _warn_once("inst_loop",
-                   f"instanced scene traverses via the per-instance loop "
-                   f"(O({inst.num}) launches/bounce): combined tables "
-                   "exceeded the single-launch kernel's VMEM/SMEM caps")
-    if inst is not None and mode == "pallas" and scene.inst_tables is not None:
-        # two-level in-kernel fallback (repass is the auto path): the
-        # PACKET kernel — a round-4 per-sublane-TLAS variant
-        # (pallas_lane_inst) lost its only A/B (3.02 vs 3.35 Mrays/s on
-        # config 4) and was deleted in round 5 (win-or-delete,
-        # docs/PERF_NOTES.md).
-        out = wide_traverse_closest_inst(
-            scene.inst_tables, o, d, tmax, active, interpret=interp,
-            with_stats=with_stats,
-            meta_vmem=_inst_meta_vmem(scene.inst_tables))
-        hit, t, prim, src, n_l = out[:5]
-        t = jnp.where(hit, t, tmax)
-        # local->world normal: instance k's cofactor transform (base hits
-        # are already world — identity); K masked matvecs fuse on the VPU
-        n_w = n_l
-        for k in range(inst.num):
-            n_w = v3.where(src == k + 1, _matvec_v3(inst.nrm[k], n_l), n_w)
-        return _ret(hit, t, prim, src, n_w,
-                    _st2(out[5]) if with_stats else None)
-
-    closest, _ = _backend(mode, interp, scene.tables, scene.bvh, scene.tris,
-                          cfg.stack_size, with_stats,
-                          getattr(scene, "leaf_hbm", False),
-                          getattr(scene, "meta_vmem", False),
-                          walker=getattr(cfg, "walker", "packet"),
-                          direct_max=_direct_max(cfg) if mode == "pallas"
-                          else 0)
+    closest, _ = _backend(mode, cfg, scene.walk, scene.bvh, scene.tris,
+                          with_stats)
     hit, t, prim, n_w, *st = closest(o, d, tmax, active)
     t = jnp.where(hit, t, tmax)
     src = jnp.zeros_like(prim)
-    # lane-walker stats carry a third (drain-round) counter; the engine
-    # consumes the shared (walk rounds, leaf visits) prefix
-    steps, leafs = (st[0][0], st[0][1]) if with_stats else (0, 0)
+    steps, leafs = st[0] if with_stats else (0, 0)
 
     if inst is not None:
         for k in range(inst.num):
             blas = scene.blas[inst.mesh_id[k]]
-            # a BLAS whose wide tables were dropped by the VMEM guard
-            # downgrades to the XLA backend instead of asserting (ADVICE r2
-            # #2); warn once — the O(I) per-instance loop is the slow path
-            mode_k = mode if blas.tables is not None else "xla"
-            if mode_k != mode:
-                _warn_blas_fallback(inst.mesh_id[k])
-            c_k, _ = _backend(mode_k, interp, blas.tables, blas.bvh,
-                              blas.tris, cfg.stack_size, with_stats,
-                              meta_vmem=_tables_meta_vmem(blas.tables),
-                              walker=getattr(cfg, "walker", "packet"),
-                              direct_max=_direct_max(cfg)
-                              if mode_k == "pallas" else 0)
+            c_k, _ = _backend(mode, cfg, blas.walk, blas.bvh, blas.tris,
+                              with_stats)
             m = active & _instance_mask(inst, k, o, d)
             o_l = _affine_point_v3(inst.inv[k], o)
             d_l = _affine_vector_v3(inst.inv[k], d)  # NOT normalized:
@@ -613,7 +440,7 @@ def trace_closest(scene, cfg, mode, interp, o, d, tmax, active,
                 (steps, leafs) if with_stats else None)
 
 
-def trace_anyhit(scene, cfg, mode, interp, o, d, tmax, exclude, active,
+def trace_anyhit(scene, cfg, mode, o, d, tmax, exclude, active,
                  with_stats=False):
     """Occlusion over base scene + all instances.
 
@@ -626,31 +453,13 @@ def trace_anyhit(scene, cfg, mode, interp, o, d, tmax, exclude, active,
         o = v3.from_array(o)
         d = v3.from_array(d)
     inst = getattr(scene, "instances", None)
-    tl_ah = getattr(cfg, "two_level_anyhit", "auto")
-    if tl_ah == "auto":
-        # follow the closest-hit strategy by default; A/B in RESULTS.md
-        tl_ah = _resolve_two_level(scene, cfg)
-    if inst is not None and mode == "pallas" and \
-            tl_ah == "repass" and _repass_ok(scene):
-        return _repass_anyhit(scene, cfg, interp, o, d, tmax, exclude,
-                              active, with_stats)
-    if inst is not None and mode == "pallas" and scene.inst_tables is not None:
-        # in-kernel two-level any-hit fallback (see trace_closest)
-        out = wide_traverse_anyhit_inst(
-            scene.inst_tables, o, d, tmax, exclude, active, interpret=interp,
-            with_stats=with_stats,
-            meta_vmem=_inst_meta_vmem(scene.inst_tables))
-        if with_stats:
-            return out[0], _st2(out[1])
-        return out
+    if inst is not None and \
+            _resolve_two_level(cfg, "two_level_anyhit") == "repass":
+        return _repass_anyhit(scene, cfg, mode, o, d, tmax, exclude, active,
+                              with_stats)
 
-    _, anyhit = _backend(mode, interp, scene.tables, scene.bvh, scene.tris,
-                         cfg.stack_size, with_stats,
-                         getattr(scene, "leaf_hbm", False),
-                         getattr(scene, "meta_vmem", False),
-                         anyhit_walker=getattr(cfg, "anyhit_walker", "auto"),
-                         direct_max=_direct_max(cfg) if mode == "pallas"
-                         else 0)
+    _, anyhit = _backend(mode, cfg, scene.walk, scene.bvh, scene.tris,
+                         with_stats)
     occ = anyhit(o, d, tmax, exclude, active)
     if with_stats:
         occ, (steps, leafs) = occ
@@ -659,14 +468,8 @@ def trace_anyhit(scene, cfg, mode, interp, o, d, tmax, exclude, active,
         no_excl = jnp.full(o[0].shape[0], -1, jnp.int32)
         for k in range(inst.num):
             blas = scene.blas[inst.mesh_id[k]]
-            mode_k = mode if blas.tables is not None else "xla"
-            _, a_k = _backend(mode_k, interp, blas.tables, blas.bvh,
-                              blas.tris, cfg.stack_size, with_stats,
-                              meta_vmem=_tables_meta_vmem(blas.tables),
-                              anyhit_walker=getattr(cfg, "anyhit_walker",
-                                                    "auto"),
-                              direct_max=_direct_max(cfg)
-                              if mode_k == "pallas" else 0)
+            _, a_k = _backend(mode, cfg, blas.walk, blas.bvh, blas.tris,
+                              with_stats)
             m = active & ~occ & _instance_mask(inst, k, o, d)
             o_l = _affine_point_v3(inst.inv[k], o)
             d_l = _affine_vector_v3(inst.inv[k], d)
@@ -685,7 +488,7 @@ def _hit_material_index(scene, src, prim):
     if runs is not None:
         # prim->material as a run-compare chain (scene.mat_runs): the map is
         # piecewise-constant over leaf-order prim ids in any real scene, so
-        # <= 32 vector compares replace the ~2.4 ms pool-width [P] gather.
+        # <= 32 vector compares replace the pool-width [P] gather.
         # prim < 0 (miss lanes) lands in run 0, matching the gather path's
         # clamp; instanced lanes are overridden below either way.
         mat_idx = jnp.full(prim.shape, runs[0][1], jnp.int32)
@@ -704,8 +507,8 @@ def _hit_material_index(scene, src, prim):
 def gather_hit_materials(scene, src, prim):
     """Material params for hits: ``(mtype, albedo, ior)``.
 
-    Hit *geometry* (position = o + t*d, normal) now comes straight from the
-    traversal (trace_closest), so the only per-hit table lookup left is one
+    Hit *geometry* (position = o + t*d, normal) comes straight from the
+    walk (trace_closest), so the only per-hit table lookup left is one
     [P] material-index gather plus the small-table material select.
     """
     return scene.materials.gather(_hit_material_index(scene, src, prim))

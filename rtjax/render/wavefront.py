@@ -1,6 +1,6 @@
 """The wavefront path-tracing engine.
 
-TPU-native rebuild of /root/reference/render.cuh — the reference's core.
+Rebuild of the reference's render.cuh — its core.
 The CUDA design is a persistent pool of NUM_WORKING_PATHS slots driven by a
 host loop: ``init`` routes slots, CUB compacts pending queues (with two
 device->host count copies per bounce), then ``mat``/``gen`` shade and refill,
@@ -9,23 +9,20 @@ and ``ah``/``ch`` traverse (SURVEY.md §2.1).
 Here the whole frame is ONE ``lax.while_loop`` on device:
 - queues + CUB compaction (render.cuh:348-364) are replaced by ONE stable
   multi-payload ``lax.sort`` of the entire path state per iteration
-  (sorting.sort_pytree_by_key): continuing paths cluster by BVH locality,
-  dead slots cluster at the back where they refill with *consecutive*
-  (coherent) camera rays, and fully-inactive lanes pool into packet tiles
-  that exit on their first step.  The state lives permanently in sorted
-  order — there is no inverse permutation, no per-array gathers (an XLA
-  [2^17] gather costs ~1 ms on v5e; the variadic sort moves all ~25
-  payload columns in about one);
-- hit geometry (t, world geometric normal) comes back FROM the traversal
-  kernels, so shading needs no triangle-table gathers at all; the hit
-  position is ray_o + t*ray_d;
+  (sorting.sort_pytree_by_key, ``RenderConfig.sort_rays``): continuing
+  paths cluster by BVH locality and dead slots cluster at the back where
+  they refill with *consecutive* (coherent) camera rays.  The state lives
+  permanently in sorted order — there is no inverse permutation and no
+  per-array gathers (the variadic sort moves all payload columns at once);
+- hit geometry (t, world geometric normal) comes back FROM the BVH walk,
+  so shading needs no triangle-table gathers at all; the hit position is
+  ray_o + t*ray_d;
 - framebuffer atomics (vec3.cuh:149-153) become deterministic scatter-adds;
 - the two host sync points per bounce (render.cuh:433-434,444-445) disappear:
   the loop condition is computed on device;
 - every per-lane vector quantity lives as a COMPONENT TRIPLE of ``[N]``
-  arrays (core.v3), not ``[N, 3]``: the padded trailing-3 layout costs
-  ~3.8x on elementwise stage math on TPU (docs/PERF_NOTES.md layout probe),
-  and the engine floor is mostly stage math.
+  arrays (core.v3), not ``[N, 3]``: each component is a contiguous array
+  the native walk reads directly.
 
 Deliberate behavioral deviations from the reference (all documented against
 file:line, none visible statistically):
@@ -99,7 +96,7 @@ class PathState:
 
     Unlike the reference's ``(u, v, primitive*)`` intersection record, the
     slot carries the hit distance and the world-space geometric normal
-    straight from the traversal kernel — shading reconstructs the hit point
+    straight from the BVH walk — shading reconstructs the hit point
     as ``ray_o + t*ray_d`` and never touches the triangle tables.
 
     Vector fields are component triples ``(x, y, z)`` of ``[N]`` arrays
@@ -193,12 +190,11 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, key,
     num_lights = scene.num_lights
     cam_end = cfg.total_camera_rays
 
-    # traversal backend: "pallas" packet kernels (TPU fast path; interpreted
-    # on CPU), "xla" gather-based while_loop, or "auto"
-    mode, interp = resolve_mode(scene, cfg)
-    t_closest = partial(trace_closest, scene, cfg, mode, interp,
+    # BVH walk: "native" (jax.ffi, one thread per ray) or "xla"
+    mode = resolve_mode(cfg)
+    t_closest = partial(trace_closest, scene, cfg, mode,
                         with_stats=cfg.detailed_stats)
-    t_anyhit = partial(trace_anyhit, scene, cfg, mode, interp,
+    t_anyhit = partial(trace_anyhit, scene, cfg, mode,
                        with_stats=cfg.detailed_stats)
 
     # all RNG words of this iteration in one threefry sweep.  Draws are
@@ -212,11 +208,10 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, key,
     # ---- init: emission, Russian roulette, routing (render.cuh:84-137) ----
     # "did this bounce-0 path hit an emitter, and which one": the reference
     # reads the hit primitive's light back-pointer (render.cuh:100,
-    # primitive.cuh:4-12).  A [P]-table gather at pool width costs ~1 ms on
-    # v5e (docs/PERF_NOTES.md round-3 rule), so for small light counts the
-    # light id comes from comparing the hit prim against the <= 16 emitter
-    # triangle ids embedded in the light table instead — 16 compares are
-    # ~10 us.  Instanced prims are never emissive (lights live in the base
+    # primitive.cuh:4-12).  For small light counts the light id comes from
+    # comparing the hit prim against the <= 16 emitter triangle ids
+    # embedded in the light table instead of a pool-width [P]-table gather.
+    # Instanced prims are never emissive (lights live in the base
     # scene); prim ids are BLAS-local for instanced hits, hence src == 0.
     if 0 < num_lights <= 16:
         light_idx = jnp.full_like(state.prim, INVALID_INDEX)
@@ -262,40 +257,35 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, key,
 
     # ---- sort: the iteration's ONE compaction step ------------------------
     # Stable variadic sort of the whole pool by (continue?, BVH locality):
-    # continuing paths group into tree-coherent packet tiles, dead slots sink
-    # to the back where gen hands them consecutive camera-sample ids (and the
-    # slots past cam_end become contiguous all-inactive tiles).  All three
-    # traversals share this order — the shadow rays originate at the same hit
-    # points.  Replaces render.cuh:348-364's CUB queue compaction.
+    # continuing paths group by tree locality, dead slots sink to the back
+    # where gen hands them consecutive camera-sample ids (and the slots past
+    # cam_end become contiguous inactive runs).  All three walks share this
+    # order — the shadow rays originate at the same hit points.  Replaces
+    # render.cuh:348-364's CUB queue compaction.
     #
-    # Bundle diet (round 4): the sort's cost is linear in payload columns,
+    # Bundle diet: the sort's cost is linear in payload columns,
     # so the default bundle carries the HIT POINT (what shading actually
     # consumes) instead of (ray_o, t), and packs (bounces, src, mat) into
     # one int32 — 18 columns instead of 21, bit-identical images (same
     # values, computed before instead of after the permutation).  Parity
     # mode keeps the full bundle (limbo lanes must restore t/prim/src).
-    state_sorted = cfg.sort_rays and mode == "pallas"
+    state_sorted = cfg.sort_rays
     hp_t = jnp.where(mat_mask, state.t, 0.0)
     hp = v3.add(state.ray_o, v3.scale(hp_t, state.ray_d))
 
     # sort_every > 1: the sort (and gen/flush, below) run only on every
     # k-th iteration — in between, continuing paths keep their slots (one-
-    # iteration-stale locality is still a good packet grouping) and dead
-    # slots idle one iteration instead of refilling.  The occupancy guard
+    # iteration-stale locality is still a good grouping) and dead slots
+    # idle one iteration instead of refilling.  The occupancy guard
     # forces a gen iteration whenever the live prefix drops below 3/4 pool
     # so the frame tail never starves.  Requires the compact sorted bundle
     # (the windowed-shade/flush prefix arithmetic is only valid right after
     # a sort, so both are gated on do_gen).
-    # sort_every == 0 resolves per workload: trivial-BVH scenes are engine-
-    # floor-dominated and win from halving the sort/gen/flush cadence
-    # (config2 97.75 vs 91.6 Mrays/s at k=2); traversal-dominated scenes
-    # lose more walk rounds to one-iteration-stale packet grouping than the
-    # skipped sort saves (config1 16.42 at k=1 vs 15.07 at k=2) —
-    # RESULTS.md 2026-08-20 same-session A/Bs.
-    # "effective" geometry counts instanced BLAS triangles too: config4 has
-    # 4 base tris but 1.1M instanced ones and is traversal-dominated, so the
-    # trivially-small classification must not fire there (ADVICE r4 #1;
-    # measured 3.96 at k=1 vs 3.91 at k=2 on config4).
+    # sort_every == 0 resolves per workload: k=2 on trivial-BVH scenes, k=1
+    # where the walk dominates (inherited, not yet re-derived on the GPU:
+    # ROADMAP S6).  "effective" geometry counts instanced BLAS triangles
+    # too: config4 has 4 base tris but 1.1M instanced ones, so the
+    # trivially-small classification must not fire there.
     eff_tris = scene.tris.num
     _inst = getattr(scene, "instances", None)
     if _inst is not None:
@@ -310,11 +300,11 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, key,
     else:
         do_gen = jnp.bool_(True)
 
-    # "dirty" = dead lanes still holding unflushed radiance.  The TPU
-    # scatter-add costs ~20 ns per update SLOT regardless of value, and in
-    # the frame TAIL (camera rays exhausted) the dead suffix grows toward
-    # the whole pool while almost every lane's acc is already flushed —
-    # so long-dead lanes re-scattered zeros for ~10 iterations.  A third
+    # "dirty" = dead lanes still holding unflushed radiance.  A scatter-add
+    # pays per update SLOT regardless of value, and in the frame TAIL
+    # (camera rays exhausted) the dead suffix grows toward the whole pool
+    # while almost every lane's acc is already flushed — so long-dead lanes
+    # would re-scatter zeros for many iterations.  A third
     # sort-key class (live < dirty-dead < clean-dead, keys below) packs
     # the dirty lanes right after the live prefix and the flush scatter
     # windows to [num_mat, num_mat + num_dirty).  fb is bitwise identical
@@ -362,8 +352,8 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, key,
             p = v3.add(ray_o_p,
                        v3.scale(jnp.where(mat_mask, t_p, 0.0), ray_d_p))
         elif _compact_bundle_ok(scene, cfg):
-            # 11-payload-column bundle (round-4 sort diet; the sort's cost
-            # is linear in columns moved).  Five packings vs the 18-column
+            # compact payload bundle (the sort's cost is linear in columns
+            # moved).  Five packings vs the 18-column
             # form, bit-lossless except the normal and the two radiance
             # triples:
             #   pbm  = pixel(21) | bounces(7, saturating dead sentinel 127)
@@ -385,7 +375,7 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, key,
             onrm = oct_encode_v3(state.normal)
             b9 = rgb9e5_encode_v3(beta)
             a9 = rgb9e5_encode_v3(acc)
-            # round-5 diet: ray_d rides as one 16+16-bit octahedral column
+            # ray_d rides as one 16+16-bit octahedral column
             # instead of three f32 ones (9 payload columns, was 11).  The
             # decoded direction only ever feeds shading's wo (the next
             # path ray is freshly BSDF-sampled, and hp was computed from
@@ -611,8 +601,8 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, key,
         if blocked:
             # rank -> pixel through a 16x16-block permutation (host-built
             # constant): consecutive sample ids map to compact screen
-            # blocks, so a packet tile of fresh camera rays traverses one
-            # screen region instead of a full-width scanline band
+            # blocks, so neighbouring fresh camera rays walk one screen
+            # region instead of a full-width scanline band
             pix_new = jnp.asarray(_blocked_pixel_order(cfg.width,
                                                        cfg.height))[pix_rank]
         else:
@@ -697,13 +687,11 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, key,
 
     # flush the radiance accumulators of slots leaving their pixel: ONE
     # deterministic scatter-add per iteration (replaces the reference's
-    # three atomic-add channels, render.cuh:102,292,322).  XLA's TPU
-    # scatter costs ~20 ns per update SLOT regardless of value, and after
-    # the sort every flushing (dead) lane sits in a contiguous SUFFIX of
-    # the pool — so scatter only the 1/8-chunks that overlap the dead
-    # suffix (full width when unsorted).  8 chunks: at high occupancy only
-    # the last ~n/8 slots scatter (~0.5 ms at 2^18 vs ~1 ms for quarters);
-    # the 8 lax.conds are noise next to that.
+    # three atomic-add channels, render.cuh:102,292,322).  A scatter pays
+    # per update SLOT regardless of value, and after the sort every
+    # flushing (dead) lane sits in a contiguous SUFFIX of the pool — so
+    # scatter only the 1/8-chunks that overlap the dead suffix (full width
+    # when unsorted): at high occupancy only the last ~n/8 slots scatter.
     flush = tuple(jnp.where(gen_mask, c, 0.0) for c in acc)
     if state_sorted and n % 8 == 0:
         csz = n // 8
@@ -745,7 +733,7 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, key,
     beta = tuple(jnp.broadcast_to(c, mat_mask.shape) for c in beta)
     bounces = jnp.where(got_ray, 0, jnp.where(gen_mask, DEAD_BOUNCES, bounces))
 
-    # ---- traversal (render.cuh:278-328) ------------------------------------
+    # ---- BVH walks (render.cuh:278-328) ------------------------------------
     trace_mask = mat_mask | got_ray
     inf = jnp.full(n, jnp.inf, jnp.float32)
     hit, ht, hprim, hsrc, hnrm, *tst = t_closest(ray_o, ray_d, inf,
@@ -758,7 +746,7 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, key,
     if num_lights > 0 and cfg.one_sample_mis:
         # one-sample MIS: the CH channel's "closest hit == the picked
         # light's triangle" is read off the path ray's hit record (the
-        # path ray IS the BSDF-MIS ray) — only the NEE any-hit launch
+        # path ray IS the BSDF-MIS ray) — only the NEE any-hit walk
         # remains, at N rays instead of 2N.  rays_traced counts only the
         # traversals actually performed.
         occluded = t_anyhit(ah_o, ah_d, ah_tmax, ltri, ah_mask)
@@ -770,9 +758,9 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, key,
         acc = _accum(acc, chs_L, chs_mask & chs_ok)
         traced = traced + jnp.sum(ah_mask, dtype=jnp.float32)
     elif num_lights > 0:
-        # both shadow channels ride ONE 2N any-hit launch (they share the
-        # sort order, so each half keeps its tile coherence): half the
-        # dispatches and scene-table DMAs of separate ah/ch launches
+        # both shadow channels ride ONE 2N any-hit call (they share the
+        # sort order, so each half keeps its locality): half the calls of
+        # separate ah/ch walks
         cat = lambda a, b: jnp.concatenate([a, b])
         cat3 = lambda a, b: tuple(jnp.concatenate([x, y])
                                   for x, y in zip(a, b))
@@ -789,7 +777,7 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, key,
             jnp.sum(chs_mask, dtype=jnp.float32)
 
     if cfg.reference_parity:
-        # limbo slots did not trace; the kernel returned hit=false for them,
+        # limbo slots did not trace; the walk returned hit=false for them,
         # but their payload must survive for the next re-roll
         hit = hit | limbo
         ht = jnp.where(limbo, t_p, ht)
@@ -853,13 +841,13 @@ def render_frame_linear(scene: Scene, camera: Camera, cfg: RenderConfig, key):
     stats = {"iterations": it, "rays_traced": rays,
              "avg_occupancy": occ / jnp.maximum(it, 1)}
     if cfg.detailed_stats:
-        # [max_bounces+1] path rays traced per bounce depth, plus traversal
-        # work counters (kernel semantics: pallas = walk rounds / leaf-row
-        # visits, xla = node-pair steps / leaf visits)
+        # [max_bounces+1] path rays traced per bounce depth, plus walk
+        # work counters (node-pair steps / leaf visits, the same for the
+        # native and the XLA walk)
         stats["bounce_histogram"] = extra[0]
         stats["node_steps"] = extra[1] + extra[3]
         stats["leaf_visits"] = extra[2] + extra[4]
-        # any-hit (shadow) launch share of the above totals
+        # any-hit (shadow) walk share of the above totals
         stats["anyhit_steps"] = extra[3]
         stats["anyhit_visits"] = extra[4]
     return fb, stats

@@ -1,6 +1,6 @@
 """Pinhole camera.
 
-TPU-native equivalent of /root/reference/camera.cuh.  The constructor
+Equivalent of the reference's camera.cuh.  The constructor
 precompute is identical (camera.cuh:15-29), including the negated ``vertical``
 so that image-space y grows downward; ``get_rays`` is the batched version of
 ``Camera::get_ray`` (camera.cuh:31-34) over arrays of normalized image

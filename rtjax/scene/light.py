@@ -1,6 +1,6 @@
 """Lights: SoA table + batched NEE sampling and pdf evaluation.
 
-TPU-native equivalent of /root/reference/light.cuh.  The tagged-union struct
+Equivalent of the reference's light.cuh.  The tagged-union struct
 with a device triangle pointer becomes a SoA table whose area lights reference
 scene triangles by (BVH-permuted) index; ``sample_Li`` / ``pdf_Li`` are
 batched masked-select functions.
@@ -34,8 +34,8 @@ class LightTable:
     two union members.  ``tri`` is the global triangle index of an area
     light's emitter (INVALID_INDEX for point lights).  The emitter
     triangle's fields (``tri_p0/e1/e2/n``) are embedded per light so NEE
-    never gathers from the full scene triangle tables (a [pool]-wide gather
-    is ~1 ms on v5e; a select over this table is ~10 us).
+    never gathers from the full scene triangle tables (a select over this
+    small table replaces a pool-wide gather).
     """
 
     ltype: jax.Array   # [L] int32
@@ -106,10 +106,9 @@ def gather_light_v3(lights: LightTable, pick):
     """Component-triple form of :func:`gather_light` (engine hot path).
 
     Up to :data:`~rtjax.core.tables.SELECT_LIMIT` lights this is 20 vector
-    select chains (~10 us/row at pool width, no HBM traffic).  Beyond that
-    the chains would cost ~L*0.2 ms/iteration, so the many-light path packs
-    the whole record into ONE ``[L, 20]`` row matrix and pays a single
-    row gather (~1 ms at pool width on v5e, flat in L) instead of 20
+    select chains (no gathers).  Beyond that the chains grow with L, so
+    the many-light path packs the whole record into ONE ``[L, 20]`` row
+    matrix and pays a single row gather (flat in L) instead of 20
     per-column gathers.  ``tri`` indices survive the f32 round-trip exactly
     below 2^24 triangles — far above the single-BLAS ceiling.
     """

@@ -1,9 +1,9 @@
 """Materials: SoA table + branchless batched BSDF sampling/evaluation.
 
-TPU-native equivalent of /root/reference/material.cuh.  The reference's
+Equivalent of the reference's material.cuh.  The reference's
 tagged-union struct with per-thread branches becomes a SoA table
 (:class:`MaterialTable`) and two batched pure functions (:func:`sample_f`,
-:func:`get_f`) that compute every material branch on the VPU and combine them
+:func:`get_f`) that compute every material branch and combine them
 with ``jnp.where`` selects — the wavefront analog of SIMT divergence-free
 shading.
 """

@@ -1,6 +1,6 @@
 """4x4 affine transforms for scene construction (host-side, NumPy).
 
-TPU-native equivalent of /root/reference/matrix4x4.hpp and transform.hpp.
+Equivalent of the reference's matrix4x4.hpp and transform.hpp.
 The reference applies a composite matrix to each vertex in a CPU loop
 (transform.hpp:26-33, main.cu:71); here ``Transform.apply`` is one batched
 ``(M @ [v, 1])`` over the whole ``[N, 3]`` vertex array.

@@ -81,7 +81,7 @@ def test_detailed_stats_counters():
     cam = Camera.make((0, 1.2, 2.5), (0, 0, 0), (0, 1, 0), 40, 1.0)
     key = jax.random.key(1)
 
-    for mode in ("pallas", "xla"):
+    for mode in ("native", "xla"):
         # direct_max_tris=0 keeps this tiny scene on the BVH kernels so
         # the walk counters stay meaningful (the direct fast path does
         # zero walk rounds by construction)
@@ -103,7 +103,7 @@ def test_detailed_stats_counters():
 
 
 def test_windowed_flush_loses_no_radiance():
-    """Under the sorted Pallas path the accumulator flush scatters only a
+    """Under the sorted state the accumulator flush scatters only a
     suffix window of the pool; with a constant environment light every
     camera ray carries exactly env radiance, so ANY lost flush shows as a
     dark pixel.  (Regression for the window/sort gating.)"""
@@ -115,7 +115,8 @@ def test_windowed_flush_loses_no_radiance():
     cam = Camera.make((0, 0, 3), (0, 0, 0), (0, 1, 0), 40, 1.0)
     # pool much smaller than the ray count: many refills, many windows
     cfg = RenderConfig(width=32, height=32, num_samples=16, max_bounces=3,
-                       num_working_paths=1 << 10, traversal="pallas")
+                       num_working_paths=1 << 10, traversal="native",
+                       sort_rays=True)
     fb, _ = render_frame(scene, cam, cfg, jax.random.key(2))
     img = np.asarray(fb)
     # sqrt(0.49); atol covers the sort bundle's RGB9E5 acc quantization
@@ -153,8 +154,8 @@ def test_sort_every_conserves_radiance():
     scene = b.build()
     cam = Camera.make((0, 0, 3), (0, 0, 0), (0, 1, 0), 40, 1.0)
     cfg = RenderConfig(width=32, height=32, num_samples=16, max_bounces=3,
-                       num_working_paths=1 << 10, traversal="pallas",
-                       sort_every=2)
+                       num_working_paths=1 << 10, traversal="native",
+                       sort_rays=True, sort_every=2)
     fb, st = render_frame(scene, cam, cfg, jax.random.key(2))
     np.testing.assert_allclose(np.asarray(fb), 0.7, atol=2e-3)
     # exactly all camera samples were generated, none twice
@@ -163,7 +164,7 @@ def test_sort_every_conserves_radiance():
     from scenes import cornell
     scene2, _ = cornell(light_size=0.5, light_l=(4.0, 4.0, 4.0))
     cfg2 = RenderConfig(width=24, height=24, num_samples=48, max_bounces=4,
-                        num_working_paths=1 << 12)
+                        num_working_paths=1 << 12, sort_rays=True)
     fb1, _ = render_frame(scene2, cam, dataclasses.replace(cfg2,
                                                            sort_every=1),
                           jax.random.key(3))

@@ -171,7 +171,8 @@ def test_windowed_shading_matches_full(matte_pair):
     scene, _ = matte_pair
     cam = default_camera()
     base = dict(width=24, height=24, num_samples=16, max_bounces=4,
-                num_working_paths=2048, traversal="pallas")
+                num_working_paths=2048, traversal="native",
+                sort_rays=True)
     fb_w, _ = render_frame(scene, cam, RenderConfig(**base, shade_chunks=8),
                            jax.random.key(3))
     fb_f, _ = render_frame(scene, cam, RenderConfig(**base, shade_chunks=1),

@@ -32,14 +32,14 @@ def _inst_scene():
 def test_trace_closest_hits_instance_in_world_space():
     scene, t = _inst_scene()
     cfg = RenderConfig()
-    mode, interp = resolve_mode(scene, cfg)
+    mode = resolve_mode(cfg)
     # ray aimed at the instanced quad: local (x,y,0) -> world after rot+T:
     # rotation by +90deg about y maps local +x to world -z; quad spans
     # world z in [0,-1], x = 2, y in [0.5, 1.5]
     o = jnp.asarray([[4.0, 1.0, -0.5]], jnp.float32)
     d = jnp.asarray([[-1.0, 0.0, 0.0]], jnp.float32)
     hit, tt, prim, src, nrm = trace_closest(
-        scene, cfg, mode, interp, o, d, jnp.full(1, jnp.inf),
+        scene, cfg, mode, o, d, jnp.full(1, jnp.inf),
         jnp.ones(1, bool))
     assert bool(hit[0])
     assert int(src[0]) == 1          # instance 1, not the base scene
@@ -47,7 +47,7 @@ def test_trace_closest_hits_instance_in_world_space():
 
     # same ray but higher: passes above the quad, hits nothing
     o2 = jnp.asarray([[4.0, 2.0, -0.5]], jnp.float32)
-    hit2, *_ = trace_closest(scene, cfg, mode, interp, o2, d,
+    hit2, *_ = trace_closest(scene, cfg, mode, o2, d,
                              jnp.full(1, jnp.inf), jnp.ones(1, bool))
     assert not bool(hit2[0])
 
@@ -55,15 +55,15 @@ def test_trace_closest_hits_instance_in_world_space():
 def test_trace_anyhit_blocked_by_instance():
     scene, _ = _inst_scene()
     cfg = RenderConfig()
-    mode, interp = resolve_mode(scene, cfg)
+    mode = resolve_mode(cfg)
     o = jnp.asarray([[4.0, 1.0, -0.5]], jnp.float32)
     d = jnp.asarray([[-1.0, 0.0, 0.0]], jnp.float32)
     no_excl = jnp.full(1, -1, jnp.int32)
-    occ = trace_anyhit(scene, cfg, mode, interp, o, d,
+    occ = trace_anyhit(scene, cfg, mode, o, d,
                        jnp.full(1, 10.0), no_excl, jnp.ones(1, bool))
     assert bool(occ[0])
     # shortened ray stops before the quad
-    occ2 = trace_anyhit(scene, cfg, mode, interp, o, d,
+    occ2 = trace_anyhit(scene, cfg, mode, o, d,
                         jnp.full(1, 1.0), no_excl, jnp.ones(1, bool))
     assert not bool(occ2[0])
 
@@ -74,11 +74,11 @@ def test_trace_closest_world_normal_and_materials():
     override applies."""
     scene, t = _inst_scene()
     cfg = RenderConfig()
-    mode, interp = resolve_mode(scene, cfg)
+    mode = resolve_mode(cfg)
     o = jnp.asarray([[4.0, 1.0, -0.5]], jnp.float32)
     d = jnp.asarray([[-1.0, 0.0, 0.0]], jnp.float32)
     hit, tt, prim, src, nrm = trace_closest(
-        scene, cfg, mode, interp, o, d, jnp.full(1, jnp.inf),
+        scene, cfg, mode, o, d, jnp.full(1, jnp.inf),
         jnp.ones(1, bool))
     assert bool(hit[0])
     # world normal of the rotated quad faces +-x
@@ -95,7 +95,7 @@ def test_trace_closest_world_normal_and_materials():
     o2 = jnp.asarray([[0.0, 3.0, 0.0]], jnp.float32)
     d2 = jnp.asarray([[0.0, -1.0, 0.0]], jnp.float32)
     hit2, tt2, prim2, src2, nrm2 = trace_closest(
-        scene, cfg, mode, interp, o2, d2, jnp.full(1, jnp.inf),
+        scene, cfg, mode, o2, d2, jnp.full(1, jnp.inf),
         jnp.ones(1, bool))
     assert bool(hit2[0]) and int(src2[0]) == 0
     n2 = np.asarray(nrm2)[0]
@@ -124,11 +124,11 @@ def test_instance_normal_nonuniform_scale():
     b.add_instance(mid, red, t)
     scene = b.build()
     cfg = RenderConfig()
-    mode, interp = resolve_mode(scene, cfg)
+    mode = resolve_mode(cfg)
     o = jnp.asarray([[0.5, 0.2, 5.0]], jnp.float32)
     d = jnp.asarray([[0.0, 0.0, -1.0]], jnp.float32)
     hit, tt, prim, src, nrm = trace_closest(
-        scene, cfg, mode, interp, o, d, jnp.full(1, jnp.inf),
+        scene, cfg, mode, o, d, jnp.full(1, jnp.inf),
         jnp.ones(1, bool))
     assert bool(hit[0]) and int(src[0]) == 1
     # two world-space surface tangents of the transformed quad
@@ -141,32 +141,15 @@ def test_instance_normal_nonuniform_scale():
     assert abs(np.dot(nn, tan2)) < 1e-5
 
 
-@pytest.mark.slow
-def test_instanced_pallas_matches_xla_random_rays():
-    """The single-launch two-level Pallas kernel (Scene.inst_tables) must
-    agree with the per-instance XLA loop on random rays: same hits, same
+@pytest.mark.parametrize("two_level", ["loop", "repass"])
+def test_instanced_native_matches_xla_random_rays(two_level):
+    """Both two-level strategies over the native walk must agree with the
+    per-instance loop over the XLA walk on random rays: same hits, same
     (src, prim) identity, same occlusion."""
-    b = SceneBuilder()
-    white = b.make_matte((0.7, 0.7, 0.7))
-    red = b.make_matte((0.6, 0.1, 0.1))
-    b.add_triangles([0, 0, 0], [1, 0, 0], [1, 0, -1], white)
-    b.add_triangles([0, 0, 0], [0, 0, -1], [1, 0, -1], white)
-    b.add_area_light([0.3, 0.9, -0.3], [0.7, 0.9, -0.3], [0.7, 0.9, -0.7],
-                     (10, 10, 10), white)
-    v = np.array([[0, 0, 0], [0.2, 0, 0], [0.1, 0, -0.2],
-                  [0.1, 0.25, -0.07]])
-    f = np.array([[0, 1, 3], [1, 2, 3], [2, 0, 3], [0, 1, 2]])
-    mid = b.register_mesh(v, f)
-    for t in [Transform(translate(0.2, 0, -0.3)),
-              Transform(scale(1.5, 1.5, 1.5)).composite(
-                  translate(0.55, 0, -0.55)),
-              Transform(rotate((0, 1, 0), 0.7)).composite(
-                  translate(0.1, 0.2, -0.7))]:
-        b.add_instance(mid, red, t)
-    scene = b.build()
-    assert scene.inst_tables is not None
-
-    cfg = RenderConfig()
+    import dataclasses
+    scene = _mixed3_scene()
+    cfg_x = RenderConfig(two_level="loop", direct_max_tris=0)
+    cfg_n = dataclasses.replace(cfg_x, two_level=two_level)
     rng = np.random.default_rng(0)
     n = 2048
     o = rng.uniform(-0.3, 1.2, (n, 3)).astype(np.float32)
@@ -177,71 +160,25 @@ def test_instanced_pallas_matches_xla_random_rays():
     tmax = jnp.full(n, jnp.inf)
     active = jnp.asarray(rng.random(n) > 0.1)
 
-    hx = trace_closest(scene, cfg, "xla", True, o, d, tmax, active)
-    hp = trace_closest(scene, cfg, "pallas", True, o, d, tmax, active)
+    hx = trace_closest(scene, cfg_x, "xla", o, d, tmax, active)
+    hn = trace_closest(scene, cfg_n, "native", o, d, tmax, active)
     m = np.asarray(hx[0])
     assert m.sum() > 20, "test scene produced too few hits"
-    np.testing.assert_array_equal(m, np.asarray(hp[0]))
-    np.testing.assert_allclose(np.asarray(hx[1])[m], np.asarray(hp[1])[m],
+    assert (np.asarray(hx[3])[m] > 0).sum() > 5  # instanced hits present
+    np.testing.assert_array_equal(m, np.asarray(hn[0]))
+    np.testing.assert_allclose(np.asarray(hx[1])[m], np.asarray(hn[1])[m],
                                rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(hx[2])[m], np.asarray(hp[2])[m])
-    np.testing.assert_array_equal(np.asarray(hx[3])[m], np.asarray(hp[3])[m])
-    np.testing.assert_allclose(np.asarray(hx[4])[m], np.asarray(hp[4])[m],
+    np.testing.assert_array_equal(np.asarray(hx[2])[m], np.asarray(hn[2])[m])
+    np.testing.assert_array_equal(np.asarray(hx[3])[m], np.asarray(hn[3])[m])
+    np.testing.assert_allclose(np.asarray(hx[4])[m], np.asarray(hn[4])[m],
                                rtol=1e-4, atol=1e-6)
 
     ex = jnp.full(n, -1, jnp.int32)
-    ox = trace_anyhit(scene, cfg, "xla", True, o, d, jnp.full(n, 2.0), ex,
+    ox = trace_anyhit(scene, cfg_x, "xla", o, d, jnp.full(n, 2.0), ex,
                       active)
-    op = trace_anyhit(scene, cfg, "pallas", True, o, d, jnp.full(n, 2.0), ex,
+    on = trace_anyhit(scene, cfg_n, "native", o, d, jnp.full(n, 2.0), ex,
                       active)
-    np.testing.assert_array_equal(np.asarray(ox), np.asarray(op))
-
-
-def test_64_instances_single_launch_path():
-    """64 instances render through the single-launch two-level kernel (the
-    round-2 int32 pending bitmask capped this at 31) and agree with the
-    XLA loop; nearest-first visiting must not change results."""
-    b = SceneBuilder()
-    white = b.make_matte((0.7, 0.7, 0.7))
-    red = b.make_matte((0.6, 0.1, 0.1))
-    b.add_triangles([-4, 0, 4], [4, 0, 4], [4, 0, -4], white)
-    b.add_triangles([-4, 0, 4], [4, 0, -4], [-4, 0, -4], white)
-    b.add_area_light([-0.5, 3, -0.5], [0.5, 3, -0.5], [0.5, 3, 0.5],
-                     (10, 10, 10), white)
-    v = np.array([[0, 0, 0], [0.2, 0, 0], [0.1, 0, -0.2],
-                  [0.1, 0.25, -0.07]])
-    f = np.array([[0, 1, 3], [1, 2, 3], [2, 0, 3], [0, 1, 2]])
-    mid = b.register_mesh(v, f)
-    for i in range(64):
-        t = Transform(translate((i % 8) * 0.9 - 3.5, 0.0,
-                                (i // 8) * 0.9 - 3.5))
-        b.add_instance(mid, red, t)
-    scene = b.build()
-    assert scene.inst_tables is not None  # single-launch path active
-    assert scene.instances.num == 64
-
-    cfg = RenderConfig()
-    rng = np.random.default_rng(3)
-    n = 2048
-    o = rng.uniform(-3.5, 3.5, (n, 3)).astype(np.float32)
-    o[:, 1] = np.abs(rng.normal(0.5, 0.3, n)).astype(np.float32) + 0.05
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    o, d = jnp.asarray(o), jnp.asarray(d)
-    tmax = jnp.full(n, jnp.inf)
-    active = jnp.ones(n, bool)
-
-    hx = trace_closest(scene, cfg, "xla", True, o, d, tmax, active)
-    hp = trace_closest(scene, cfg, "pallas", True, o, d, tmax, active)
-    m = np.asarray(hx[0])
-    assert m.sum() > 100
-    # instanced hits present (not just the floor)
-    assert (np.asarray(hx[3])[m] > 0).sum() > 20
-    np.testing.assert_array_equal(m, np.asarray(hp[0]))
-    np.testing.assert_allclose(np.asarray(hx[1])[m], np.asarray(hp[1])[m],
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(hx[2])[m], np.asarray(hp[2])[m])
-    np.testing.assert_array_equal(np.asarray(hx[3])[m], np.asarray(hp[3])[m])
+    np.testing.assert_array_equal(np.asarray(ox), np.asarray(on))
 
 
 def test_mat_runs_chain_matches_gather():
@@ -308,13 +245,10 @@ def test_repass_two_level_matches_xla():
     (G=3, take_rows select chain) on random mixed-coherence rays."""
     import dataclasses
 
-    from rtjax.render.trace import _repass_ok
-
     scene = _mixed3_scene()
-    assert _repass_ok(scene)
     # direct_max_tris=0: the stats assertion below is about the BVH
     # walk counters, which the small-scene direct fast path bypasses
-    cfg_x = RenderConfig(direct_max_tris=0)
+    cfg_x = RenderConfig(direct_max_tris=0, two_level="loop")
     cfg_r = dataclasses.replace(cfg_x, two_level="repass")
 
     rng = np.random.default_rng(0)
@@ -327,8 +261,8 @@ def test_repass_two_level_matches_xla():
     tmax = jnp.full(n, jnp.inf)
     active = jnp.asarray(rng.random(n) > 0.1)
 
-    hx = trace_closest(scene, cfg_x, "xla", True, o, d, tmax, active)
-    hr = trace_closest(scene, cfg_r, "pallas", True, o, d, tmax, active)
+    hx = trace_closest(scene, cfg_x, "xla", o, d, tmax, active)
+    hr = trace_closest(scene, cfg_r, "native", o, d, tmax, active)
     m = np.asarray(hx[0])
     assert m.sum() > 20
     np.testing.assert_array_equal(m, np.asarray(hr[0]))
@@ -340,24 +274,24 @@ def test_repass_two_level_matches_xla():
                                rtol=1e-4, atol=1e-6)
 
     ex = jnp.full(n, -1, jnp.int32)
-    ox = trace_anyhit(scene, cfg_x, "xla", True, o, d, jnp.full(n, 2.0), ex,
+    ox = trace_anyhit(scene, cfg_x, "xla", o, d, jnp.full(n, 2.0), ex,
                       active)
-    orp = trace_anyhit(scene, cfg_r, "pallas", True, o, d, jnp.full(n, 2.0),
+    orp = trace_anyhit(scene, cfg_r, "native", o, d, jnp.full(n, 2.0),
                        ex, active)
     np.testing.assert_array_equal(np.asarray(ox), np.asarray(orp))
 
     # with_stats plumbing: counters present and the walk did real work
-    out = trace_closest(scene, cfg_r, "pallas", True, o, d, tmax, active,
+    out = trace_closest(scene, cfg_r, "native", o, d, tmax, active,
                         with_stats=True)
     steps, leafs = out[5]
     assert int(steps) > 0 and int(leafs) > 0
 
 
 @pytest.mark.slow
-def test_repass_render_matches_kernel_two_level():
+def test_repass_render_matches_loop_two_level():
     """A full wavefront render of an instanced scene must be (numerically)
-    identical under two_level='repass' and the in-kernel loop: the same
-    estimator sees the same hits, so images differ only by FP noise."""
+    identical under two_level='repass' and 'loop': the same estimator sees
+    the same hits, so images differ only by FP noise."""
     import dataclasses
 
     from rtjax.render import render_frame
@@ -369,7 +303,7 @@ def test_repass_render_matches_kernel_two_level():
                         num_working_paths=4096)
     key = jax.random.key(7)
     fb_k, _ = render_frame(scene, cam,
-                           dataclasses.replace(base, two_level="kernel"),
+                           dataclasses.replace(base, two_level="loop"),
                            key)
     fb_r, _ = render_frame(scene, cam,
                            dataclasses.replace(base, two_level="repass"),
@@ -380,8 +314,8 @@ def test_repass_render_matches_kernel_two_level():
 
 
 def test_direct_small_scene_matches_xla():
-    """The trivially-small-scene fast path (unrolled MT loop, zero pallas
-    launches) must agree with the XLA traversal exactly: same accept
+    """The trivially-small-scene fast path (unrolled MT loop, no BVH walk)
+    must agree with the XLA traversal exactly: same accept
     rule, leaf-order prim ids, unnormalized normals, and occlusion with
     per-lane exclusion."""
     import dataclasses
@@ -407,8 +341,8 @@ def test_direct_small_scene_matches_xla():
 
     cfg = RenderConfig()
     cfg0 = dataclasses.replace(cfg, direct_max_tris=0)
-    hd = trace_closest(scene, cfg, "pallas", True, o, d, tmax, active)
-    hx = trace_closest(scene, cfg0, "xla", True, o, d, tmax, active)
+    hd = trace_closest(scene, cfg, "native", o, d, tmax, active)
+    hx = trace_closest(scene, cfg0, "xla", o, d, tmax, active)
     m = np.asarray(hx[0])
     assert m.sum() > 20
     np.testing.assert_array_equal(np.asarray(hd[0]), m)
@@ -420,8 +354,8 @@ def test_direct_small_scene_matches_xla():
     ex = jnp.asarray(np.where(rng.random(n) > 0.5,
                               rng.integers(0, scene.tris.num, n),
                               -1).astype(np.int32))
-    od = trace_anyhit(scene, cfg, "pallas", True, o, d, jnp.full(n, 2.0),
+    od = trace_anyhit(scene, cfg, "native", o, d, jnp.full(n, 2.0),
                       ex, active)
-    ox = trace_anyhit(scene, cfg0, "xla", True, o, d, jnp.full(n, 2.0),
+    ox = trace_anyhit(scene, cfg0, "xla", o, d, jnp.full(n, 2.0),
                       ex, active)
     np.testing.assert_array_equal(np.asarray(od), np.asarray(ox))
